@@ -1,39 +1,45 @@
-"""Test configuration: force a virtual 8-device CPU mesh.
+"""Test configuration: the virtual 8-device CPU mesh, or the GPU.
 
-Multi-chip sharding is validated without TPU hardware by running JAX on CPU
-with 8 virtual devices (SURVEY.md §4: CPU mesh emulation), so these env vars
-must be set before jax initializes.
+By default the suite runs on CPU with 8 virtual devices, so multi-device
+sharding is validated without hardware (SURVEY.md §4: CPU mesh emulation)
+and the Pallas kernel runs through the interpreter (`interpret=True`,
+always passed explicitly). `python -m pytest tests -m gpu` selects the
+tests that need a GPU and leaves JAX on its default platform; the `gpu`
+fixture skips them where no GPU is present.
 """
 
 import os
 
-# L2N_TEST_PLATFORM=tpu opts into running the hardware-only tests
-# (tests/test_tpu_hw.py) against a real chip; the default suite runs on the
-# virtual CPU mesh.
-_ON_TPU = os.environ.get("L2N_TEST_PLATFORM") == "tpu"
+import jax
+import numpy as np
+import pytest
 
-if not _ON_TPU:
-    os.environ["JAX_PLATFORMS"] = "cpu"  # override any ambient TPU platform
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a GPU (run with `-m gpu` on a GPU machine)")
+    if config.getoption("markexpr", "") == "gpu":
+        return
+    # Before any JAX backend initializes: env vars for the CPU client, and
+    # the config directly (a plugin may have imported jax already).
+    os.environ["JAX_PLATFORMS"] = "cpu"
     flags = os.environ.get("XLA_FLAGS", "")
     if "xla_force_host_platform_device_count" not in flags:
         os.environ["XLA_FLAGS"] = (
             flags + " --xla_force_host_platform_device_count=8").strip()
-
-# jax may already be imported by a pytest plugin with the ambient platform
-# (env is snapshotted at import time) — force the config directly too.
-import jax  # noqa: E402
-
-if not _ON_TPU:
     jax.config.update("jax_platforms", "cpu")
+    # Persistent compilation cache: interpret-mode kernel traces still pay
+    # real XLA:CPU compiles; caching them across runs saves minutes.
+    from l2n.utils.compile_cache import enable
+    enable()
 
-# Persistent compilation cache: interpret-mode kernel traces still pay real
-# XLA:CPU compiles; caching them across runs shaves minutes off the suite.
-from l2n_tpu.utils.compile_cache import enable as _enable_compile_cache  # noqa: E402
 
-_enable_compile_cache()
-
-import numpy as np  # noqa: E402
-import pytest  # noqa: E402
+@pytest.fixture
+def gpu():
+    """Skip unless JAX's default device is a GPU."""
+    if jax.default_backend() != "gpu":
+        pytest.skip("needs a GPU: run `python -m pytest tests -m gpu` on a "
+                    "machine with one")
 
 
 @pytest.fixture

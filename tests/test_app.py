@@ -5,11 +5,11 @@ import zlib
 import numpy as np
 import pytest
 
-from l2n_tpu.app import Application, PngSequenceDisplay
-from l2n_tpu.camera import ControllerInput
-from l2n_tpu.config import RenderConfig
-from l2n_tpu.utils.checkpoint import load_session, save_session
-from l2n_tpu.utils.image import tonemap_to_u8, write_png
+from l2n.app import Application, PngSequenceDisplay
+from l2n.camera import ControllerInput
+from l2n.config import RenderConfig
+from l2n.utils.checkpoint import load_session, save_session
+from l2n.utils.image import tonemap_to_u8, write_png
 
 CFG = RenderConfig(width=128, height=64, tile_width=128, tile_height=32,
                    sphere_count=8, tiles_per_step=1).validate()
@@ -83,7 +83,7 @@ class TestSessionCheckpoint:
         the config (cfg.obj_path), so a resume rebuilds the SAME imported
         geometry — and resuming into a procedural-scene config is rejected
         instead of silently accumulating mismatched radiance."""
-        from l2n_tpu.scene.procgen import torus_field_obj
+        from l2n.scene.procgen import torus_field_obj
         obj = tmp_path / "tori.obj"
         obj.write_text(torus_field_obj(n_tori=2, seg_u=8, seg_v=6,
                                        world_size=256.0))
@@ -154,7 +154,7 @@ class TestObjCli:
         cfgp.write_text('{"width": 128, "height": 64, "tiles_per_step": 2}')
         import contextlib
         import os
-        from l2n_tpu.app.application import main
+        from l2n.app.application import main
         out = tmp_path / "frames"
         cwd = os.getcwd()
         os.chdir(tmp_path)  # camera cache lands here

@@ -1,13 +1,14 @@
-"""The five BASELINE.json workload configs, exercised end-to-end (scaled
-down for CPU CI; bench.py runs the full-size flagship on TPU)."""
+"""The five workload configs of the original build plan (SURVEY.md §7),
+exercised end-to-end (scaled down for CPU CI; bench.py runs the full-size
+flagship on the GPU)."""
 
 import numpy as np
 import pytest
 
-from l2n_tpu.camera import Camera, ControllerInput
-from l2n_tpu.config import RenderConfig
-from l2n_tpu.render import Renderer, SphereProgram, init_frame_state
-from l2n_tpu.render.state import display_image
+from l2n.camera import Camera, ControllerInput
+from l2n.config import RenderConfig
+from l2n.render import Renderer, SphereProgram, init_frame_state
+from l2n.render.state import display_image
 
 
 def renderer(cfg, backend="xla"):
@@ -64,7 +65,7 @@ class TestBaselineConfigs:
     def test_config4_interactive_loop(self):
         """'interactive loop: ViewController orbit/FPS camera + host
         readback' — scripted drag orbit with per-frame display readback."""
-        from l2n_tpu.app import Application
+        from l2n.app import Application
         cfg = RenderConfig(width=128, height=64, tile_width=128,
                            tile_height=32, sphere_count=8,
                            tiles_per_step=1).validate()
@@ -86,8 +87,8 @@ class TestBaselineConfigs:
     def test_config5_multichip_tiled(self):
         """'multi-chip tiled render: image shards across 8 chips, per-tile
         accumulation + final gather' — via the virtual CPU mesh."""
-        from l2n_tpu.parallel import ShardedRenderer, make_device_mesh
-        from l2n_tpu.scene import compute_spheres
+        from l2n.parallel import ShardedRenderer, make_device_mesh
+        from l2n.scene import compute_spheres
         cfg = RenderConfig(width=128, height=256, tile_width=128,
                            tile_height=32, sphere_count=8,
                            tiles_per_step=1).validate()

@@ -1,37 +1,23 @@
-"""Big-mesh scaling: the slab-GROUP hierarchy + the trefoil asset.
+"""Big-mesh scene asset: the trefoil knot tube.
 
 The reference brute-forces 128 x 256 triangles per ray
-(/root/reference/src/shaders/triangle_pathtracing.cs.glsl:164-175) and its
-TODO wishes for an acceleration structure (/root/reference/TODO.md:9
-"CPU intersection with embree"). The rebuild's answer is the two-level
-slab walk plus, for huge work lists, a slab-GROUP bound level
-(ops/kernels/triangle_pt.py, round-5). These tests pin:
-
-* the trefoil generator emits ONE closed watertight mesh (so the
-  certain-hit machinery — inscribed sphere, interior balls — is sound);
-* group bounds CONTAIN their member slabs (conservative hierarchy);
-* the hierarchical flag pass is BIT-identical to the flat r4 path, and
-  the hier kernel is bit-identical to the XLA oracle on a lit view.
-
-The full 70k-triangle scene is exercised on hardware (tests/test_tpu_hw.py
-gate + the bench `bigobj` stage); interpret-mode CPU renders of it take
-tens of minutes, so the CPU tier uses a reduced trefoil with the
-hierarchy FORCED via L2N_TRI_HIER_MIN (read at build time).
+(l2n-renderer/src/shaders/triangle_pathtracing.cs.glsl:164-175) and its
+TODO wishes for an acceleration structure (l2n-renderer/TODO.md:9
+"CPU intersection with embree"). The 70k-triangle trefoil is the scene
+that such a structure would be measured on. These tests pin the asset
+(one closed watertight mesh, deterministic, the documented size) and its
+render through the oracle at a reduced tessellation.
 """
 
-import os
-
 import numpy as np
-import jax
-import pytest
 
-from l2n_tpu.camera import Camera
-from l2n_tpu.config import RenderConfig
-from l2n_tpu.maths.linalg import look_at
-from l2n_tpu.render.state import init_frame_state
-from l2n_tpu.render.step import build_render_step
-from l2n_tpu.scene.obj import load_obj
-from l2n_tpu.scene.procgen import trefoil_obj, torus_field_obj
+from l2n.camera import Camera
+from l2n.config import RenderConfig
+from l2n.maths.linalg import look_at
+from l2n.render.state import init_frame_state
+from l2n.render.step import build_render_step
+from l2n.scene.obj import load_obj
+from l2n.scene.procgen import trefoil_obj
 
 CFG = RenderConfig(width=128, height=32, tile_width=128, tile_height=32,
                    tiles_per_step=1, scene_kind="triangle").validate()
@@ -50,134 +36,35 @@ def aimed_camera(cfg, scene, offset=(0.35, 0.25, 1.0), dist=1.6):
     return Camera.from_config(cfg, view_matrix=vm)
 
 
-@pytest.fixture
-def hier_forced(monkeypatch):
-    """Force the slab-GROUP hierarchy on (threshold read at build time)."""
-    monkeypatch.setenv("L2N_TRI_HIER_MIN", "1")
-
-
 class TestTrefoilAsset:
     def test_single_closed_watertight_mesh(self):
-        from l2n_tpu.ops.kernels.triangle_pt import _mesh_watertight
+        """Every undirected edge is shared by exactly two triangles (the
+        generator welds the tube's seams by index)."""
         scene = small_trefoil()
         assert scene.mesh_count == 1
         assert scene.total_triangles == 2 * 48 * 20
         tris = np.asarray(scene.indices).reshape(-1, 3)
-        assert _mesh_watertight(np.asarray(scene.vertices), tris)
+        edges = np.sort(np.concatenate(
+            [tris[:, [0, 1]], tris[:, [1, 2]], tris[:, [2, 0]]]), axis=1)
+        _, uses = np.unique(edges, axis=0, return_counts=True)
+        assert (uses == 2).all()
 
     def test_deterministic(self):
         assert trefoil_obj(seg_u=16, seg_v=8) == trefoil_obj(seg_u=16, seg_v=8)
 
-    def test_interior_balls_built(self):
-        """The knot tube (like the torus) has no useful central inscribed
-        sphere; the interior certain-hit balls must carry the any-hit
-        shortcut — and every ball must be strictly inside the solid."""
-        from l2n_tpu.ops.kernels.triangle_pt import (
-            _solid_angle_inside,
-            pack_mesh_blocks,
-        )
-        scene = small_trefoil()
-        *_, balls = pack_mesh_blocks(scene)
-        live = balls[0, :, 3] > 0
-        assert live.sum() >= 4
-        soup = {k: np.asarray(v) for k, v in scene.soup().items()}
-        v1 = np.stack([soup[f"v1{a}"] for a in "xyz"], 1)
-        v2 = v1 + np.stack([soup[f"e1{a}"] for a in "xyz"], 1)
-        v3 = v1 + np.stack([soup[f"e2{a}"] for a in "xyz"], 1)
-        assert _solid_angle_inside(balls[0, live, :3].astype(np.float64),
-                                   v1, v2, v3).all()
-
     def test_default_size_is_70k(self):
         # The generator's default is the scaling asset size; don't build
-        # the mesh here (85 s pack) — just the arithmetic contract.
+        # the mesh here — just the arithmetic contract.
         assert 2 * 256 * 137 == 70144
 
-
-class TestSlabGroups:
-    def test_group_bounds_contain_member_slabs(self):
-        from l2n_tpu.ops.kernels.triangle_pt import (
-            pack_mesh_blocks,
-            pack_slab_groups,
-        )
+    def test_oracle_renders_lit_frame(self):
         scene = small_trefoil()
-        _, _, slab, _, scnt, *_ = pack_mesh_blocks(scene)
-        for gsub in (2, 4, 8):
-            grp, gcnt = pack_slab_groups(slab, scnt, gsub)
-            assert int(gcnt[0]) == -(-int(scnt[0]) // gsub)
-            for g in range(int(gcnt[0])):
-                gc, gr = grp[0, g, :3], grp[0, g, 4]
-                assert gr > 0
-                members = slab[0, g * gsub:min((g + 1) * gsub, int(scnt[0]))]
-                live = members[:, 3] > 0
-                d = np.linalg.norm(members[live, :3] - gc, axis=1)
-                assert (d + members[live, 4] <= gr * (1 + 1e-5)).all()
-
-    def test_empty_groups_never_entered(self):
-        from l2n_tpu.ops.kernels.triangle_pt import pack_slab_groups
-        slab = np.zeros((1, 8, 5), np.float32)
-        slab[:, :, 3] = -1e30
-        slab[0, 0] = [0, 0, 0, 1.0, 1.0]
-        grp, gcnt = pack_slab_groups(slab, np.array([1], np.int32), 8)
-        assert int(gcnt[0]) == 1
-        assert grp[0, 0, 3] > 0  # the live slab's group
-        # A mesh with zero slabs contributes no groups.
-        grp2, gcnt2 = pack_slab_groups(slab, np.array([0], np.int32), 8)
-        assert int(gcnt2[0]) == 0
-        assert (grp2[0, :, 3] < 0).all()
-
-
-class TestHierarchyParity:
-    """The hierarchical flag pass prunes with CONSERVATIVE group bounds
-    and preserves front-to-back order, so the compacted slab work list —
-    and therefore the image — is IDENTICAL to the flat path's."""
-
-    @pytest.mark.slow
-    def test_trefoil_hier_matches_flat_and_oracle(self, hier_forced,
-                                                  monkeypatch):
-        scene = small_trefoil()
-        cam = aimed_camera(CFG, scene)
-        results = {}
-        for label, hm in (("hier", "1"), ("flat", "99999")):
-            monkeypatch.setenv("L2N_TRI_HIER_MIN", hm)
-            step = build_render_step(CFG, scene, backend="pallas")
-            st = init_frame_state(CFG)
-            for _ in range(2):
-                st = step(st, cam.packed())
-            results[label] = np.asarray(st.accum)
+        cam = aimed_camera(CFG, scene).packed()
         step = build_render_step(CFG, scene, backend="xla")
         st = init_frame_state(CFG)
         for _ in range(2):
-            st = step(st, cam.packed())
-        oracle = np.asarray(st.accum)
-
-        lit = (oracle[:3].max(0) > 0).mean()
-        assert lit > 0.1, f"near-black comparison ({lit:.4f})"
-        np.testing.assert_array_equal(results["hier"], results["flat"])
-        np.testing.assert_array_equal(oracle[3], results["hier"][3])
-        diff = np.abs(oracle - results["hier"])
-        assert (diff > 1e-3).mean() < 1e-3  # statistical parity budget
-
-    @pytest.mark.slow
-    def test_torus_field_hier_matches_flat(self, hier_forced, monkeypatch):
-        """Multi-mesh scene (the measured obj bench asset, reduced) through
-        the hierarchy: work lists spanning meshes keep front-to-back
-        order."""
-        scene = load_obj(torus_field_obj(n_tori=2, seg_u=16, seg_v=10,
-                                         world_size=512.0))
-        verts = np.asarray(scene.vertices).reshape(-1, 3)
-        m0 = verts[:len(verts) // 2]
-        target = m0.mean(0)
-        radius = float(np.linalg.norm(m0 - target, axis=1).max())
-        vm = look_at(target + np.array([0.0, 0.0, 3.5 * radius], np.float32),
-                     target, np.array([0.0, 1.0, 0.0], np.float32))
-        cam = Camera.from_config(CFG, view_matrix=vm)
-        results = {}
-        for label, hm in (("hier", "1"), ("flat", "99999")):
-            monkeypatch.setenv("L2N_TRI_HIER_MIN", hm)
-            step = build_render_step(CFG, scene, backend="pallas")
-            st = init_frame_state(CFG)
-            for _ in range(2):
-                st = step(st, cam.packed())
-            results[label] = np.asarray(st.accum)
-        assert (results["flat"][:3].max(0) > 0).mean() > 0.1
-        np.testing.assert_array_equal(results["hier"], results["flat"])
+            st = step(st, cam)
+        acc = np.asarray(st.accum)
+        assert np.isfinite(acc).all()
+        assert (acc[3] == 2).all()
+        assert (acc[:3].max(0) > 0).mean() > 0.1

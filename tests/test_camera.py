@@ -6,16 +6,16 @@ import json
 import numpy as np
 import pytest
 
-from l2n_tpu.camera import (
+from l2n.camera import (
     Camera,
     ControllerInput,
     ViewController,
     load_view_matrix,
     save_view_matrix,
 )
-from l2n_tpu.camera import camera as camera_mod
-from l2n_tpu.config import RenderConfig
-from l2n_tpu.maths.linalg import DEFAULT_VIEW_MATRIX, camera_position, inverse
+from l2n.camera import camera as camera_mod
+from l2n.config import RenderConfig
+from l2n.maths.linalg import DEFAULT_VIEW_MATRIX, camera_position, inverse
 
 
 class TestViewController:

@@ -10,16 +10,16 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from l2n_tpu.camera import Camera
-from l2n_tpu.config import RenderConfig
-from l2n_tpu.render.program import SphereProgram
-from l2n_tpu.render.state import init_frame_state
-from l2n_tpu.rng.sampler import ThreefrySampler, max_pairs_per_sample
+from l2n.camera import Camera
+from l2n.config import RenderConfig
+from l2n.render.program import SphereProgram
+from l2n.render.state import init_frame_state
+from l2n.rng.sampler import ThreefrySampler, max_pairs_per_sample
 
 
 def trace_rays(cfg, scene, n, seed_stream=0):
-    from l2n_tpu.ops.pathtrace import trace_path
-    from l2n_tpu.ops.scenes import sphere_intersector
+    from l2n.ops.pathtrace import trace_path
+    from l2n.ops.scenes import sphere_intersector
     isect = sphere_intersector(scene)
     pix = jnp.arange(n, dtype=jnp.uint32)
     z = jnp.zeros(n, jnp.float32)
@@ -36,7 +36,7 @@ def trace_rays(cfg, scene, n, seed_stream=0):
 def emissive_scene(distance, radius):
     """One emissive sphere (index 0 => emissive_every hits it) straight
     down -z at `distance` from the origin."""
-    from l2n_tpu.scene import SphereScene
+    from l2n.scene import SphereScene
     return SphereScene(
         center_x=jnp.asarray([0.0], jnp.float32),
         center_y=jnp.asarray([0.0], jnp.float32),
@@ -81,7 +81,7 @@ class TestBeerLambert:
     def test_sky_attenuates_too(self):
         """Environment light is only reached by collision-free flights to
         the sky shell: E[sky] = sky * exp(-sigma * R_sky)."""
-        from l2n_tpu.scene import compute_spheres
+        from l2n.scene import compute_spheres
         scene = emissive_scene(1e7, 1.0)  # effectively empty scene
         sigma, r_sky = 0.001, 1500.0
         base = RenderConfig(width=8, height=8, env_mode="sun",
@@ -102,8 +102,8 @@ class TestFogNee:
     def test_shadow_transmittance_is_analytic(self):
         """nee_contribution under fog equals the fog-free contribution
         times exp(-sigma * dist-to-light-point), lane for lane."""
-        from l2n_tpu.ops.nee import LightSample, nee_contribution
-        from l2n_tpu.ops.scenes import sphere_intersector
+        from l2n.ops.nee import LightSample, nee_contribution
+        from l2n.ops.scenes import sphere_intersector
 
         sigma = 0.004
         light_c = np.array([50.0, 200.0, -40.0], np.float32)
@@ -164,7 +164,7 @@ class TestFogNee:
                            nee=True).validate()
         states = []
         for backend in ("xla", "pallas"):
-            prog = SphereProgram(cfg, backend=backend)
+            prog = SphereProgram(cfg, backend=backend, interpret=True)
             st = init_frame_state(cfg)
             cam = Camera.from_config(cfg).packed()
             for _ in range(2):
@@ -245,7 +245,7 @@ class TestFogNeeMis:
                            nee=True, mis=True).validate()
         states = []
         for backend in ("xla", "pallas"):
-            prog = SphereProgram(cfg, backend=backend)
+            prog = SphereProgram(cfg, backend=backend, interpret=True)
             st = init_frame_state(cfg)
             cam = Camera.from_config(cfg).packed()
             for _ in range(2):
@@ -259,7 +259,7 @@ class TestFogNeeMis:
 
 
 def SphereSceneFromArrays(centers, radii):
-    from l2n_tpu.scene import SphereScene
+    from l2n.scene import SphereScene
     centers = np.atleast_2d(np.asarray(centers, np.float32))
     radii = np.asarray(radii, np.float32).reshape(-1)
     return SphereScene(
@@ -273,14 +273,14 @@ class TestParity:
     def test_fog_off_is_bit_identical(self):
         """fog_density=0 must not change a single bit (the fog draws are
         gated at trace time, so the RNG stream layout is untouched)."""
-        from l2n_tpu.scene import compute_spheres
+        from l2n.scene import compute_spheres
         cfg = RenderConfig(width=128, height=64, tile_width=128,
                            tile_height=32, sphere_count=16,
                            tiles_per_step=2).validate()
         cfg2 = cfg.replace(fog_albedo=0.33)  # density 0: albedo is inert
         outs = []
         for c in (cfg, cfg2):
-            prog = SphereProgram(c, backend="pallas")
+            prog = SphereProgram(c, backend="pallas", interpret=True)
             st = init_frame_state(c)
             cam = Camera.from_config(c).packed()
             for _ in range(2):
@@ -296,7 +296,7 @@ class TestParity:
                            fog_albedo=0.8).validate()
         states = []
         for backend in ("xla", "pallas"):
-            prog = SphereProgram(cfg, backend=backend)
+            prog = SphereProgram(cfg, backend=backend, interpret=True)
             st = init_frame_state(cfg)
             cam = Camera.from_config(cfg).packed()
             for _ in range(2):
@@ -320,16 +320,16 @@ class TestParity:
         RenderConfig(fog_density=0.1, nee=True, mis=True).validate()
         with pytest.raises(ValueError, match="emissive_every"):
             RenderConfig(fog_density=0.1, emissive_every=1).validate()
-        with pytest.raises(ValueError, match="wavefront"):
-            RenderConfig(fog_density=0.1, wavefront=True).validate()
+        with pytest.raises(ValueError, match="stateless"):
+            RenderConfig(fog_density=0.1, rng="tauslcg").validate()
         with pytest.raises(ValueError):
             RenderConfig(fog_density=-1.0).validate()
         with pytest.raises(ValueError):
             RenderConfig(fog_albedo=1.5).validate()
         with pytest.raises(ValueError, match="fog"):
-            from l2n_tpu.native.api import NativeRenderer
-            from l2n_tpu.render.tiles import tile_grid
-            from l2n_tpu.scene import compute_spheres
+            from l2n.native.api import NativeRenderer
+            from l2n.render.tiles import tile_grid
+            from l2n.scene import compute_spheres
             cfg = RenderConfig(fog_density=0.1).validate()
             NativeRenderer(cfg, compute_spheres(4, 256.0, 0).as_numpy(),
                            np.asarray(tile_grid(cfg)))

@@ -1,26 +1,29 @@
-"""Pallas kernel tier tests.
+"""Sphere kernel tests.
 
-On CPU these run through the Pallas interpreter (`interpret=True`), which
-validates kernel logic, block indexing and aliasing; compiled-mode parity is
-additionally exercised on real TPU by `bench.py` and the parity scripts.
+On CPU the kernel runs through the Pallas interpreter (`interpret=True`,
+always passed explicitly), which validates kernel logic, block indexing and
+aliasing. The compiled Triton kernel is checked against the oracle on the
+GPU by `chip_smoke.py`; here `TestTritonLowering` lowers it for CUDA, which
+catches every primitive the Triton route cannot express.
 """
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 
-from l2n_tpu.camera import Camera
-from l2n_tpu.config import RenderConfig
-from l2n_tpu.ops.kernels.uv_demo import uv_demo
-from l2n_tpu.render.program import SphereProgram
-from l2n_tpu.render.state import init_frame_state
+from l2n.camera import Camera
+from l2n.config import RenderConfig
+from l2n.ops.uv_demo import uv_demo
+from l2n.render.program import SphereProgram
+from l2n.render.state import init_frame_state
 
 CFG = RenderConfig(width=256, height=64, tile_width=128, tile_height=32,
                    sphere_count=32, tiles_per_step=2).validate()
 
 
 def run_steps(backend, cfg=CFG, n=2):
-    prog = SphereProgram(cfg, backend=backend)
+    prog = SphereProgram(cfg, backend=backend, interpret=True)
     cam = Camera.from_config(prog.cfg).packed()
     st = init_frame_state(prog.cfg)
     for _ in range(n):
@@ -89,397 +92,6 @@ class TestSphereKernelParity:
                                    atol=1e-5)
 
 
-class TestTriangleKernel:
-    TRI_CFG = RenderConfig(width=128, height=64, tile_width=128,
-                           tile_height=32, sphere_count=8, disc_lat=8,
-                           disc_long=4, tiles_per_step=1,
-                           scene_kind="triangle").validate()
-
-    @staticmethod
-    def aimed_camera(cfg):
-        """Camera looking at the emissive sphere (index 0) up close — the
-        DEFAULT camera sees ~0.1% geometry on this 8-sphere config, and a
-        near-black parity comparison gates almost nothing (the sharded
-        row_offset bug hid behind one)."""
-        from l2n_tpu.maths.linalg import look_at
-        from l2n_tpu.scene import compute_spheres
-        sp = compute_spheres(cfg.sphere_count, cfg.world_size,
-                             cfg.scene_seed)
-        c0 = np.array([float(sp.center_x[0]), float(sp.center_y[0]),
-                       float(sp.center_z[0])], np.float32)
-        r0 = float(np.sqrt(float(sp.sqr_radius[0])))
-        vm = look_at(c0 + np.array([0.0, 0.0, 2.5 * r0], np.float32), c0,
-                     np.array([0.0, 1.0, 0.0], np.float32))
-        return Camera.from_config(cfg, view_matrix=vm)
-
-    def run(self, backend, cfg=None, n=2):
-        from l2n_tpu.render.program import TriangleProgram
-        cfg = cfg or self.TRI_CFG
-        prog = TriangleProgram(cfg, backend=backend)
-        cam = self.aimed_camera(prog.cfg).packed()
-        st = init_frame_state(prog.cfg)
-        for _ in range(n):
-            st = prog.step(st, cam)
-        return st
-
-    def test_matches_xla_oracle(self):
-        """Two-level (bound-cull + DMA-paged sweep) kernel vs the brute-force
-        oracle — different algorithms, same image (interpret mode on CPU is
-        bit-exact here)."""
-        so = self.run("xla")
-        sp = self.run("pallas")
-        acc = np.asarray(so.accum)
-        assert (acc[:3].max(0) > 0).mean() > 0.05  # real lit coverage
-        np.testing.assert_array_equal(acc[3], np.asarray(sp.accum[3]))
-        d = np.abs(acc - np.asarray(sp.accum))
-        assert np.sqrt((d ** 2).mean()) < 1e-3
-        assert (d > 1e-3).mean() < 1e-3
-
-    def test_tex_coords_aov(self):
-        cfg = self.TRI_CFG.replace(aov="tex_coords")
-        so = self.run("xla", cfg)
-        sp = self.run("pallas", cfg)
-        d = np.abs(np.asarray(so.accum) - np.asarray(sp.accum))
-        assert (d > 1e-4).mean() < 1e-3
-
-    def test_param_uv_aov(self):
-        # Barycentric AOV exercises the slow (full-attribute) sweep.
-        cfg = self.TRI_CFG.replace(aov="param_uv")
-        so = self.run("xla", cfg)
-        sp = self.run("pallas", cfg)
-        d = np.abs(np.asarray(so.accum) - np.asarray(sp.accum))
-        assert (d > 1e-4).mean() < 1e-3
-
-    @pytest.mark.slow
-    def test_ambient_occlusion_aov(self):
-        cfg = self.TRI_CFG.replace(aov="ambient_occlusion")
-        so = self.run("xla", cfg)
-        sp = self.run("pallas", cfg)
-        np.testing.assert_array_equal(np.asarray(so.accum[3]),
-                                      np.asarray(sp.accum[3]))
-        d = np.abs(np.asarray(so.accum) - np.asarray(sp.accum))
-        # Budget: the aimed close-up camera fills the frame with the
-        # emissive sphere, so AO hemisphere rays graze their own surface —
-        # the documented assume-outside/epsilon-crack divergence class
-        # concentrates here (measured 0.32% on this frame; was <0.2% when
-        # the old default camera saw ~0.1% geometry).
-        assert (d > 1e-3).mean() < 8e-3
-
-    def test_interior_balls(self):
-        """Certain-hit balls for meshes without a useful central inscribed
-        sphere (tori): strictly inside the closed solid, radius bounded by
-        the exact point-triangle distance, and the upper-bound property —
-        an outside-origin ray crossing a ball has a brute-force nearest
-        triangle hit at t <= ball entry."""
-        from l2n_tpu.ops.kernels.triangle_pt import (
-            _point_tri_dist,
-            _solid_angle_inside,
-            pack_mesh_blocks,
-        )
-        from l2n_tpu.scene.obj import load_obj
-        from l2n_tpu.scene.procgen import torus_field_obj
-        scene = load_obj(torus_field_obj(n_tori=2, seg_u=16, seg_v=10,
-                                         world_size=512.0))
-        out = pack_mesh_blocks(scene)
-        inner_gap, balls = out[5], out[7]
-        assert (inner_gap > 2e30).all()        # central sphere never fires
-        assert (balls[..., 3] > 0).any(1).all()  # every torus got balls
-        soup = {k: np.asarray(v) for k, v in scene.soup().items()}
-        rng = np.random.default_rng(3)
-        for m in range(scene.mesh_count):
-            sel = np.flatnonzero(soup["mesh_id"] == m)
-            v1 = np.stack([soup[f"v1{a}"][sel] for a in "xyz"], 1).astype(
-                np.float64)
-            e1 = np.stack([soup[f"e1{a}"][sel] for a in "xyz"], 1)
-            e2 = np.stack([soup[f"e2{a}"][sel] for a in "xyz"], 1)
-            v2, v3 = v1 + e1, v1 + e2
-            live = balls[m][balls[m, :, 3] > 0]
-            centers = live[:, :3].astype(np.float64)
-            assert _solid_angle_inside(centers, v1, v2, v3).all()
-            d = _point_tri_dist(centers, v1, v2, v3).min(-1)
-            assert (live[:, 3] <= d * d * (1 + 1e-5)).all()
-            # Ray property: aim jittered rays at each ball from outside.
-            for cb in live:
-                o = cb[:3] + rng.normal(size=(64, 3)) * 200.0
-                o = o[~_solid_angle_inside(o, v1, v2, v3)]
-                to = cb[:3] - o
-                to /= np.linalg.norm(to, axis=1, keepdims=True)
-                # Half exact center aims (guaranteed crossings), half
-                # jittered (graze the ball boundary).
-                jit = rng.normal(size=to.shape) * 0.01
-                jit[::2] = 0.0
-                dirs = to + jit
-                dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
-                p = np.cross(dirs[:, None, :], e2[None])
-                det = (e1[None] * p).sum(-1)
-                ok = np.abs(det) >= 1e-9
-                rcp = np.where(ok, 1.0 / np.where(ok, det, 1.0), 0.0)
-                tv = o[:, None, :] - v1[None]
-                u = (tv * p).sum(-1) * rcp
-                q = np.cross(tv, e1[None])
-                vv = (dirs[:, None, :] * q).sum(-1) * rcp
-                th = (e2[None] * q).sum(-1) * rcp
-                valid = (ok & (u >= 0) & (u <= 1) & (vv >= 0)
-                         & (u + vv <= 1) & (th >= 1e-6))
-                tn = np.where(valid, th, np.inf).min(-1)
-                ro = o - cb[:3]
-                hb = (ro * dirs).sum(-1)
-                c = (ro * ro).sum(-1) - cb[3]
-                disc = hb * hb - c
-                cross = (hb < 0) & (disc >= 0) & (c >= 0)
-                t_in = -hb - np.sqrt(np.maximum(disc, 0))
-                assert cross.sum() >= 16  # center-aimed rays always cross
-                bad = cross & (tn > t_in * (1 + 1e-5) + 1e-6)
-                assert not bad.any()
-
-    def test_watertightness_gates_balls(self):
-        """ADVICE r3: the solid-angle certification alone accepts a mesh
-        with a < 1e-2 sr hole; a combinatorial edge-manifold check on the
-        indexed topology must gate ball construction. A closed torus
-        passes; the same torus with ONE face removed (a crack the
-        solid-angle test cannot see from most candidates) gets NO balls —
-        while a watertight neighbor in the same scene keeps its own."""
-        import dataclasses as dc
-        from l2n_tpu.ops.kernels.triangle_pt import (
-            _mesh_watertight,
-            pack_mesh_blocks,
-        )
-        from l2n_tpu.scene.obj import load_obj
-        from l2n_tpu.scene.procgen import torus_field_obj
-        scene = load_obj(torus_field_obj(n_tori=2, seg_u=16, seg_v=10,
-                                         world_size=512.0))
-        verts = np.asarray(scene.vertices)
-        tris = np.asarray(scene.indices).reshape(-1, 3)
-        offs = np.asarray(scene.index_offset) // 3
-        cnts = np.asarray(scene.triangle_count)
-        tris0 = tris[offs[0]:offs[0] + cnts[0]]
-        assert _mesh_watertight(verts, tris0)
-        assert not _mesh_watertight(verts, tris0[:-1])  # one-face crack
-        # Scene-level: crack mesh 0 only; mesh 1 must keep its balls.
-        cracked = dc.replace(
-            scene,
-            indices=jnp.concatenate([
-                scene.indices[:(offs[0] + cnts[0] - 1) * 3],
-                scene.indices[(offs[0] + cnts[0]) * 3:]]),
-            triangle_count=jnp.asarray(
-                np.array([cnts[0] - 1, cnts[1]], np.int32)),
-            index_offset=jnp.asarray(
-                np.array([offs[0] * 3, (offs[0] + cnts[0] - 1) * 3],
-                         np.int32)))
-        balls = pack_mesh_blocks(cracked)[7]
-        assert not (balls[0, :, 3] > 0).any()
-        assert (balls[1, :, 3] > 0).any()
-
-    def test_watertightness_gates_inner_sphere_too(self):
-        """Round-4 review: the inscribed-sphere certain-hit shortcut is
-        certified by the same solid-angle test as the balls, so it needs
-        the same combinatorial gate — a cracked mesh must disable BOTH
-        (inner_gap stays +BIG), or any-hit rays escaping through the
-        crack get certified as occluded."""
-        import dataclasses as dc
-        from l2n_tpu.ops.kernels.triangle_pt import pack_mesh_blocks
-        from l2n_tpu.scene import build_triangle_scene, compute_spheres
-        scene = build_triangle_scene(compute_spheres(2, 512.0, 0), 16, 8)
-        gap = np.asarray(pack_mesh_blocks(scene)[5])
-        assert (gap < 2e30).all()  # closed tessellated spheres: enabled
-        offs = np.asarray(scene.index_offset) // 3
-        cnts = np.asarray(scene.triangle_count)
-        # Remove an EQUATORIAL face of mesh 0 (the last faces are the
-        # tessellation's degenerate pole slivers, whose removal does not
-        # open the surface — the manifold check drops them anyway).
-        k = int(offs[0] + cnts[0] // 2)
-        idx = np.asarray(scene.indices)
-        cracked = dc.replace(
-            scene,
-            indices=jnp.asarray(np.concatenate([idx[:k * 3],
-                                                idx[(k + 1) * 3:]])),
-            triangle_count=jnp.asarray(
-                np.array([cnts[0] - 1, cnts[1]], np.int32)),
-            index_offset=jnp.asarray(
-                np.array([offs[0] * 3, (offs[0] + cnts[0] - 1) * 3],
-                         np.int32)))
-        gap_c = np.asarray(pack_mesh_blocks(cracked)[5])
-        assert gap_c[0] > 2e30  # crack: shortcut off (solid angle ~4pi!)
-        assert gap_c[1] < 2e30  # intact neighbor keeps its shortcut
-
-    def test_canonicalization_merges_ulp_seams(self):
-        """The tessellation's longitude seam reaches the same vertex via
-        phi=0 and phi=2pi trig paths that differ in the last ulp; the
-        eps-tolerance canonicalization must merge them (bytewise identity
-        measured only 12/16 tessellated spheres watertight)."""
-        from l2n_tpu.ops.kernels.triangle_pt import (
-            _canonical_vertex_ids,
-            _mesh_watertight,
-        )
-        from l2n_tpu.scene import build_triangle_scene, compute_spheres
-        scene = build_triangle_scene(compute_spheres(16, 512.0, 0), 16, 8)
-        verts = np.asarray(scene.vertices)
-        tris = np.asarray(scene.indices).reshape(-1, 3)
-        offs = np.asarray(scene.index_offset) // 3
-        cnts = np.asarray(scene.triangle_count)
-        canon = _canonical_vertex_ids(verts)
-        assert all(
-            _mesh_watertight(verts, tris[offs[m]:offs[m] + cnts[m]],
-                             canon=canon)
-            for m in range(scene.mesh_count))
-        # The canonicalization must merge MORE than bytewise identity
-        # (the scene's seams contain bitwise-distinct duplicates) while
-        # keeping genuinely distinct vertices apart.
-        v = np.ascontiguousarray(verts.reshape(-1, 3), np.float32)
-        n_byte = len(np.unique(v.view([("", np.float32)] * 3).reshape(-1)))
-        n_canon = len(np.unique(canon))
-        assert n_canon < n_byte  # ulp seam twins merged
-        assert n_canon > len(v) // 4  # real spacing stays distinct
-
-    def _obj_multislab_parity(self, **cfg_kw):
-        """Arbitrary imported geometry (tori: no sphere-exact normals, no
-        shellwalk, >128 triangles per mesh => MULTI-slab work lists) through
-        the slab-based walk vs the brute-force oracle. Exercises the
-        spatial sort, per-slab DMA staging, sub-cluster gating, interior
-        certain-hit balls, and the full-attribute (non-fast) sweep on a
-        scene the procedural shortcuts cannot cover."""
-        from l2n_tpu.render.program import TriangleProgram
-        from l2n_tpu.scene.obj import load_obj
-        from l2n_tpu.scene.procgen import torus_field_obj
-
-        scene = load_obj(torus_field_obj(n_tori=2, seg_u=16, seg_v=10,
-                                         world_size=512.0))
-        from l2n_tpu.maths.linalg import look_at
-        from l2n_tpu.ops.kernels.triangle_pt import _SLAB, pack_mesh_blocks
-        assert pack_mesh_blocks(scene)[0].shape[2] > _SLAB  # multi-slab
-        cfg = RenderConfig(width=128, height=64, tile_width=128,
-                           tile_height=32, tiles_per_step=1,
-                           scene_kind="triangle", **cfg_kw).validate()
-        # Aim at the emissive torus (mesh 0, emissive_every) so the frame
-        # has real hits, bounces, AND light — the default camera sees only
-        # sky here and a black-vs-black comparison would pass vacuously.
-        verts = np.asarray(scene.vertices).reshape(-1, 3)
-        m0 = verts[:len(verts) // 2]              # mesh 0 (the emissive one)
-        target = m0.mean(0)
-        radius = float(np.linalg.norm(m0 - target, axis=1).max())
-        eye = target + np.array([0.0, 0.0, 3.5 * radius], np.float32)
-        vm = look_at(eye, target, np.array([0.0, 1.0, 0.0], np.float32))
-        cam = Camera.from_config(cfg, view_matrix=vm).packed()
-
-        def run(backend):
-            prog = TriangleProgram(cfg, scene=scene, backend=backend)
-            st = init_frame_state(prog.cfg)
-            for _ in range(2):
-                st = prog.step(st, cam)
-            return st
-
-        so = run("xla")
-        sp = run("pallas")
-        acc = np.asarray(so.accum)
-        assert (acc[:3].max(0) > 0).mean() > 0.05  # real lit coverage
-        np.testing.assert_array_equal(acc[3], np.asarray(sp.accum[3]))
-        d = np.abs(acc - np.asarray(sp.accum))
-        assert np.sqrt((d ** 2).mean()) < 1e-3
-        assert (d > 1e-3).mean() < 1e-3
-
-    @pytest.mark.slow
-    def test_matches_xla_oracle_obj_multislab(self):
-        self._obj_multislab_parity()
-
-    @pytest.mark.slow
-    def test_matches_xla_oracle_obj_multislab_nee(self):
-        """NEE on the torus field: shadow rays exercise the ball-certified
-        any-hit path and the mesh-bound cone light sampler on arbitrary
-        closed meshes."""
-        self._obj_multislab_parity(nee=True)
-
-    def test_pack_mesh_blocks(self):
-        from l2n_tpu.ops.kernels.triangle_pt import pack_mesh_blocks
-        from l2n_tpu.scene import build_triangle_scene, compute_spheres
-        spheres = compute_spheres(4, 256.0, seed=0)
-        scene = build_triangle_scene(spheres, 8, 4)
-        (blocks, bounds, slab_bounds, sub_bounds, slab_count, inner_gap,
-         sphere_normals, balls) = pack_mesh_blocks(scene)
-        # Tessellated spheres have a strong central inscribed sphere, so
-        # interior-ball construction is skipped for them entirely.
-        assert (balls[..., 3] < 0).all()
-        # Closed tessellated spheres have a real inscribed sphere:
-        # 0 <= gap < r_out^2.
-        assert (inner_gap >= 0).all() and (inner_gap < bounds[:, 3]).all()
-        assert blocks.shape == (4, 24, 128)  # 64 tris/mesh padded to 128
-        assert (slab_count == 1).all()
-        # Tessellated spheres qualify for center-based normal recovery.
-        assert sphere_normals
-        # Slab/sub bounds: each non-empty sub-run's bound contains all of
-        # its triangles' corners; empty runs are marked never-entered.
-        from l2n_tpu.ops.kernels.triangle_pt import _SUBS, _SUBSIZE
-        assert slab_bounds.shape == (4, 1, 5)
-        assert sub_bounds.shape == (4, 1, _SUBS, 5)
-        for m in range(4):
-            for c in range(_SUBS):
-                blk = blocks[m, :, c * _SUBSIZE:(c + 1) * _SUBSIZE]
-                live = (blk[3:9] != 0).any(0)
-                if not live.any():
-                    assert sub_bounds[m, 0, c, 3] < 0
-                    continue
-                v1 = blk[0:3, live].T
-                v2 = v1 + blk[3:6, live].T
-                v3 = v1 + blk[6:9, live].T
-                pts = np.concatenate([v1, v2, v3], 0)
-                d2 = ((pts - sub_bounds[m, 0, c, :3]) ** 2).sum(1)
-                assert (d2 <= sub_bounds[m, 0, c, 3] + 1e-3).all()
-                d2s = ((pts - slab_bounds[m, 0, :3]) ** 2).sum(1)
-                assert (d2s <= slab_bounds[m, 0, 3] + 1e-3).all()
-        # Bounds must contain every vertex of their mesh (conservative).
-        v = np.asarray(scene.vertices).reshape(4, -1, 3)
-        for m in range(4):
-            d2 = ((v[m] - bounds[m, :3]) ** 2).sum(1)
-            assert (d2 <= bounds[m, 3] + 1e-3).all()
-        # Exactly the real triangles are live; padding slots are degenerate
-        # (all-zero edges -> det = 0 -> rejected).
-        live = (blocks[:, 3:9] != 0).any(1)
-        assert (live.sum(1) == 64).all()
-
-
-class TestWavefront:
-    """The wavefront split (pass A / compact / pass B / pass C) must produce
-    the same image as the fused single-pass kernel: both compose the same
-    _scatter_and_roulette/_finish_path helpers and the threefry stream
-    resumes at pass A's exact static draw position."""
-
-    def test_matches_single_pass(self):
-        # skip_empty's lax.cond only guarantees statistical parity (see
-        # test_skip_empty_matches_no_skip) — disable it on both sides so
-        # the wavefront comparison is over identical math.
-        cfg = CFG.replace(skip_empty_tiles=False)
-        a = run_steps("pallas", cfg)
-        b = run_steps("pallas", cfg.replace(wavefront=True))
-        np.testing.assert_array_equal(np.asarray(a.accum[3]),
-                                      np.asarray(b.accum[3]))
-        # Bit-exact on the plain path: identical draws, identical fp ops.
-        np.testing.assert_array_equal(np.asarray(a.accum),
-                                      np.asarray(b.accum))
-
-    def test_nee_mis_close(self):
-        cfg = CFG.replace(nee=True, mis=True)
-        a = run_steps("pallas", cfg)
-        b = run_steps("pallas", cfg.replace(wavefront=True))
-        # Pass B accumulates its NEE/MIS terms into a zero base and the
-        # caller adds that to pass A's partial radiance — one reassociation
-        # of the color sum, so parity is 1-ULP-tight rather than bitwise.
-        np.testing.assert_allclose(np.asarray(a.accum), np.asarray(b.accum),
-                                   rtol=1e-6, atol=1e-6)
-
-    def test_matches_oracle(self):
-        so = run_steps("xla", CFG)
-        sp = run_steps("pallas", CFG.replace(wavefront=True))
-        np.testing.assert_array_equal(np.asarray(so.accum[3]),
-                                      np.asarray(sp.accum[3]))
-        a, b = np.asarray(so.accum), np.asarray(sp.accum)
-        assert np.sqrt(((a - b) ** 2).mean()) < 1e-3
-        diff = np.abs(np.asarray(so.output) - np.asarray(sp.output))
-        assert (diff > 1e-3).mean() < 1e-3
-
-    def test_requires_stateless_sampler(self):
-        with pytest.raises(ValueError, match="stateless"):
-            CFG.replace(wavefront=True, rng="tinymt").validate()
-
-
 class TestDisjointSceneFastPath:
     """For provably disjoint scenes the kernel's bounce/shadow sweeps drop
     the reference's t2 fallback (assume_outside — an EXACT equivalence, see
@@ -488,8 +100,8 @@ class TestDisjointSceneFastPath:
 
     def _grid_scene(self):
         import jax.numpy as jnp
-        from l2n_tpu.scene import SphereScene
-        from l2n_tpu.scene.spheres import spheres_disjoint
+        from l2n.scene import SphereScene
+        from l2n.scene.spheres import spheres_disjoint
         xs = np.array([-300, -100, 100, 300] * 4, np.float32)
         ys = np.repeat([-150, -50, 50, 150], 4).astype(np.float32)
         zs = np.where(np.arange(16) % 2 == 0, -80.0, 60.0).astype(np.float32)
@@ -500,13 +112,14 @@ class TestDisjointSceneFastPath:
         return scene
 
     def test_matches_oracle(self):
-        from l2n_tpu.render.state import init_frame_state as init
+        from l2n.render.state import init_frame_state as init
         cfg = CFG.replace(sphere_count=16).validate()
         scene = self._grid_scene()
         cam = Camera.from_config(cfg).packed()
         states = []
         for backend in ("xla", "pallas"):
-            prog = SphereProgram(cfg, scene=scene, backend=backend)
+            prog = SphereProgram(cfg, scene=scene, backend=backend,
+                                 interpret=True)
             st = init(cfg)
             for _ in range(2):
                 st = prog.step(st, cam)
@@ -522,47 +135,11 @@ class TestDisjointSceneFastPath:
     def test_default_scene_not_disjoint(self):
         # The reference's procedural scene has overlapping pairs, so the
         # fast path must stay OFF there (the t2 fallback is live).
-        from l2n_tpu.scene import compute_spheres
-        from l2n_tpu.scene.spheres import spheres_disjoint
+        from l2n.scene import compute_spheres
+        from l2n.scene.spheres import spheres_disjoint
         cfg = RenderConfig().validate()
         scene = compute_spheres(128, 1024.0, cfg.scene_seed)
         assert not spheres_disjoint(scene)
-
-
-class TestSppStack:
-    """spp_stack traces N samples as one (N*th, tw) lane block instead of
-    sequential sample-loop passes. Counter-based RNG keys on (pixel,
-    sample), so per-lane draws — and therefore every per-lane float op —
-    are identical; the stacked image must equal the looped one exactly."""
-
-    def test_stacked_matches_loop(self):
-        cfg = CFG.replace(spp_per_step=4, spp_stack=1,
-                          skip_empty_tiles=False)
-        ref = run_steps("pallas", cfg)
-        for stack in (2, 4):
-            got = run_steps("pallas", cfg.replace(spp_stack=stack))
-            np.testing.assert_array_equal(np.asarray(ref.accum),
-                                          np.asarray(got.accum))
-
-    def test_stacked_matches_oracle(self):
-        cfg = CFG.replace(spp_per_step=4, spp_stack=2)
-        so = run_steps("xla", cfg)
-        sp = run_steps("pallas", cfg)
-        np.testing.assert_array_equal(np.asarray(so.accum[3]),
-                                      np.asarray(sp.accum[3]))
-        a, b = np.asarray(so.accum), np.asarray(sp.accum)
-        assert np.sqrt(((a - b) ** 2).mean()) < 1e-3
-        diff = np.abs(np.asarray(so.output) - np.asarray(sp.output))
-        assert (diff > 1e-3).mean() < 1e-3
-
-    def test_non_divisor_stack_clamps(self):
-        # spp_stack=4 with spp=3 clamps down to the largest divisor (3).
-        cfg = CFG.replace(spp_per_step=3, spp_stack=4,
-                          skip_empty_tiles=False)
-        ref = run_steps("pallas", cfg.replace(spp_stack=1))
-        got = run_steps("pallas", cfg)
-        np.testing.assert_array_equal(np.asarray(ref.accum),
-                                      np.asarray(got.accum))
 
 
 class TestFastMath:
@@ -576,7 +153,7 @@ class TestFastMath:
     FM_CFG = CFG.replace(sphere_count=128)
 
     def test_fast_sqrt_values(self):
-        from l2n_tpu.ops.intersect import fast_sqrt
+        from l2n.ops.intersect import fast_sqrt
         x = jnp.asarray([1e-8, 0.5, 1.0, 2.0, 1e6, 3e30], jnp.float32)
         np.testing.assert_allclose(np.asarray(fast_sqrt(x)),
                                    np.sqrt(np.asarray(x)), rtol=3e-7)
@@ -621,7 +198,8 @@ class TestStepsPerCall:
     @pytest.mark.parametrize("backend", ["xla", "pallas"])
     def test_fused_equals_sequential(self, backend):
         single = run_steps(backend, CFG, n=4)
-        prog = SphereProgram(CFG, backend=backend, steps_per_call=2)
+        prog = SphereProgram(CFG, backend=backend, steps_per_call=2,
+                             interpret=True)
         cam = Camera.from_config(prog.cfg).packed()
         st = init_frame_state(prog.cfg)
         for _ in range(2):
@@ -636,7 +214,8 @@ class TestStepsPerCall:
         through the fori_loop (tinymt parity mode)."""
         cfg = CFG.replace(rng="tinymt", skip_empty_tiles=False)
         single = run_steps("pallas", cfg, n=4)
-        prog = SphereProgram(cfg, backend="pallas", steps_per_call=2)
+        prog = SphereProgram(cfg, backend="pallas", steps_per_call=2,
+                             interpret=True)
         cam = Camera.from_config(prog.cfg).packed()
         st = init_frame_state(prog.cfg)
         for _ in range(2):
@@ -657,3 +236,187 @@ class TestUVDemo:
         np.testing.assert_allclose(img[1, :, 0], 0.5 * np.arange(32) / 32,
                                    atol=1e-6)
         assert img[2].max() == 0.0
+
+
+# One 32x128 tile, 16 spheres, depth <= 2: small enough that every variant
+# renders in seconds through the interpreter. emissive_every=2 and an aimed
+# camera keep the frame lit (a black frame proves nothing).
+SMALL = RenderConfig(width=128, height=32, tile_width=128, tile_height=32,
+                     sphere_count=16, tiles_per_step=1,
+                     emissive_every=2).validate()
+
+
+def _aimed_parity(cfg, steps=2):
+    from tests.test_brdf import TestRenderIntegration
+    cam = TestRenderIntegration._aimed_camera(cfg).packed()
+    states = []
+    for backend in ("xla", "pallas"):
+        prog = SphereProgram(cfg, backend=backend, interpret=True)
+        st = init_frame_state(prog.cfg)
+        for _ in range(steps):
+            st = prog.step(st, cam)
+        states.append(st)
+    return states
+
+
+class TestKernelVariants:
+    """The interpreted kernel against the oracle, feature by feature: both
+    trace the same ops/pathtrace.py code, so on CPU they agree to the last
+    bit except where a fused reassociation flips a discrete event."""
+
+    @pytest.mark.parametrize("rng", ["threefry", "tinymt", "tauslcg"])
+    def test_rng(self, rng):
+        cfg = SMALL.replace(rng=rng, skip_empty_tiles=rng == "threefry")
+        so, sp = _aimed_parity(cfg)
+        a, b = np.asarray(so.accum), np.asarray(sp.accum)
+        assert (a[:3].max(0) > 0).mean() > 0.3
+        np.testing.assert_array_equal(a[3], b[3])
+        assert np.sqrt(((a - b) ** 2).mean()) < 1e-3
+        if cfg.rng_stateful:
+            np.testing.assert_array_equal(np.asarray(so.rng_state),
+                                          np.asarray(sp.rng_state))
+
+    @pytest.mark.parametrize("aov", ["normal", "hit", "ambient_occlusion",
+                                     "tex_coords", "param_uv"])
+    def test_aov(self, aov):
+        so, sp = _aimed_parity(SMALL.replace(aov=aov), steps=1)
+        a, b = np.asarray(so.accum), np.asarray(sp.accum)
+        np.testing.assert_array_equal(a[3], b[3])
+        assert (np.abs(a - b) > 1e-4).mean() < 1e-3
+
+    @pytest.mark.parametrize("features", [
+        dict(material_mode="microfacet"),
+        dict(material_mode="disney"),
+        dict(nee=True),
+        dict(nee=True, mis=True),
+        dict(fog_density=0.002),
+        dict(fog_density=0.002, nee=True, mis=True),
+        dict(normal_map=0.8, env_mode="sun"),
+        dict(max_bounces=1),
+    ], ids=lambda f: "-".join(f"{k}={v}" for k, v in f.items()))
+    def test_features(self, features):
+        so, sp = _aimed_parity(SMALL.replace(**features))
+        a, b = np.asarray(so.accum), np.asarray(sp.accum)
+        assert (a[:3].max(0) > 0).mean() > 0.02
+        np.testing.assert_array_equal(a[3], b[3])
+        d = np.abs(a - b)
+        assert (d.max(0) > 1e-3).mean() < 2e-3
+
+    def test_explicit_lights(self):
+        from l2n.scene.materials import PointLights
+        cfg = SMALL.replace(env_mode="none")
+        cam = Camera.from_config(cfg).packed()
+        lights = PointLights.from_arrays([[0.0, 200.0, 0.0]], [[5e4] * 3])
+        accums = []
+        for backend in ("xla", "pallas"):
+            prog = SphereProgram(cfg, backend=backend, interpret=True,
+                                 point_lights=lights)
+            accums.append(np.asarray(prog.step(init_frame_state(cfg),
+                                               cam).accum))
+        np.testing.assert_array_equal(accums[0][3], accums[1][3])
+        assert (np.abs(accums[0] - accums[1]).max(0) > 1e-3).mean() < 2e-3
+
+
+class TestKernelBlocks:
+    """The wrapper splits each scheduled tile into power-of-two pixel
+    blocks that divide it (Triton tensors are powers of two)."""
+
+    @pytest.mark.parametrize("tile,want", [
+        ((32, 128), (16, 16)),
+        ((32, 32), (16, 16)),
+        ((8, 8), (8, 8)),
+        ((24, 96), (8, 16)),
+        ((8, 4), (8, 4)),
+    ])
+    def test_block_divides_tile(self, tile, want):
+        from l2n.ops.kernels.sphere_pt import BLOCK_SHAPE, kernel_block
+        assert BLOCK_SHAPE == (16, 16)
+        cfg = RenderConfig(tile_height=tile[0], tile_width=tile[1])
+        got = kernel_block(cfg)
+        assert got == want
+        assert tile[0] % got[0] == 0 and tile[1] % got[1] == 0
+
+    @pytest.mark.parametrize("tile", [(32, 32), (16, 64)])
+    def test_other_tile_shapes_match_oracle(self, tile):
+        """Padded framebuffers (height 40 is not a tile multiple) and
+        several blocks per tile: every pixel of each scheduled tile is
+        written exactly once."""
+        cfg = RenderConfig(width=64, height=40, tile_height=tile[0],
+                           tile_width=tile[1], sphere_count=16,
+                           tiles_per_step=2).validate()
+        so = run_steps("xla", cfg, n=3)
+        sp = run_steps("pallas", cfg, n=3)
+        a, b = np.asarray(so.accum), np.asarray(sp.accum)
+        np.testing.assert_array_equal(a[3], b[3])
+        assert a[3].sum() == 3 * 2 * tile[0] * tile[1]
+        assert np.sqrt(((a - b) ** 2).mean()) < 1e-3
+
+
+class TestBackendChoice:
+    """backend="auto" chooses by platform and never falls back silently."""
+
+    @pytest.mark.parametrize("platform,scene_kind,want", [
+        ("gpu", "sphere", "pallas"),
+        ("gpu", "triangle", "xla"),
+        ("cpu", "sphere", "xla"),
+        ("cpu", "triangle", "xla"),
+    ])
+    def test_auto(self, monkeypatch, platform, scene_kind, want):
+        from l2n.render.step import default_backend
+        monkeypatch.setattr(jax, "default_backend", lambda: platform)
+        assert default_backend(RenderConfig(scene_kind=scene_kind)) == want
+
+    @pytest.mark.parametrize("platform", ["rocm", "METAL", "interpreter"])
+    def test_unknown_platform_raises(self, monkeypatch, platform):
+        from l2n.render.step import default_backend
+        monkeypatch.setattr(jax, "default_backend", lambda: platform)
+        with pytest.raises(RuntimeError, match="no render backend"):
+            default_backend(RenderConfig())
+
+    def test_program_auto_on_cpu_is_oracle(self):
+        assert SphereProgram(SMALL).backend == "xla"
+
+    def test_kernel_never_interprets_implicitly(self):
+        """Without interpret=True the kernel compiles for the GPU; on the
+        CPU that is an error, not a silent interpreter run."""
+        prog = SphereProgram(SMALL, backend="pallas")
+        cam = Camera.from_config(SMALL).packed()
+        with pytest.raises(Exception, match="(?i)interpret"):
+            prog.step(init_frame_state(SMALL), cam)
+
+
+class TestTritonLowering:
+    """Lower the kernel for CUDA on the CPU host: Pallas emits the Triton
+    IR here and XLA compiles it only on the GPU, so every primitive the
+    Triton route lacks fails in this test rather than on the card."""
+
+    @pytest.mark.parametrize("features", [
+        dict(),
+        dict(fast_math=True),
+        dict(rng="tinymt", skip_empty_tiles=False),
+        dict(rng="tauslcg"),
+        dict(nee=True, mis=True, fog_density=0.001),
+        dict(material_mode="disney", normal_map=0.5),
+        dict(aov="ambient_occlusion"),
+    ], ids=lambda f: "-".join(f"{k}={v}" for k, v in f.items()) or "base")
+    def test_lowers_to_triton(self, features):
+        from l2n.render.step import build_render_step
+        from l2n.scene import compute_spheres
+        cfg = RenderConfig(width=256, height=64, sphere_count=128,
+                           tiles_per_step=4, spp_per_step=2,
+                           **features).validate()
+        scene = compute_spheres(cfg.sphere_count, cfg.world_size,
+                                cfg.scene_seed)
+        step = build_render_step(cfg, scene, backend="pallas")
+        state = jax.eval_shape(lambda: init_frame_state(cfg))
+        cam = Camera.from_config(cfg).packed()
+        text = step.trace(state, cam).lower(
+            lowering_platforms=("cuda",)).as_text()
+        assert "__gpu$xla.gpu.triton" in text
+
+
+def test_default_block_is_two_pixels_per_thread():
+    """The shipped block shape (the fastest measured, PERF.md) keeps the
+    per-pixel path state of two pixels in each thread's registers."""
+    from l2n.ops.kernels.sphere_pt import BLOCK_SHAPE, NUM_WARPS
+    assert BLOCK_SHAPE[0] * BLOCK_SHAPE[1] == 2 * 32 * NUM_WARPS

@@ -4,7 +4,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from l2n_tpu.maths import linalg, sampling
+from l2n.maths import linalg, sampling
 
 
 class TestLinalg:
@@ -102,8 +102,9 @@ class TestSampling:
     def test_normalize3_fast_matches_exact(self, rng):
         v = rng.normal(size=(4096, 3)).astype(np.float32) * np.float32(3.0)
         args = tuple(jnp.asarray(v[:, i]) for i in range(3))
-        ex = np.stack(sampling.normalize3(*args), 1)
-        fa = np.stack(sampling.normalize3(*args, fast=True), 1)
+        v64 = v.astype(np.float64)
+        ex = v64 / np.linalg.norm(v64, axis=1, keepdims=True)
+        fa = np.stack(sampling.normalize3(*args), 1)
         np.testing.assert_allclose(np.linalg.norm(fa, axis=1), 1.0, atol=2e-6)
         np.testing.assert_allclose(fa, ex, atol=2e-6)
 
@@ -111,12 +112,19 @@ class TestSampling:
         z = rng.normal(size=(4096, 3)).astype(np.float32)
         z /= np.linalg.norm(z, axis=1, keepdims=True)
         args = tuple(jnp.asarray(z[:, i]) for i in range(3))
-        (tx, ty, tz), (bx, by, bz) = sampling.frame_z(*args)
-        (fx, fy, fz), (gx, gy, gz) = sampling.frame_z(*args, fast=True)
-        np.testing.assert_allclose(np.stack([fx, fy, fz], 1),
-                                   np.stack([tx, ty, tz], 1), atol=2e-6)
+        (fx, fy, fz), (gx, gy, gz) = sampling.frame_z(*args)
+        # Exact float64 frame: t = (z.y, -z.x, 0)/|z.xy| where |z.y| > |z.x|,
+        # else (z.z, 0, -z.x)/|z.xz| (frameZ); b = z x t.
+        z64 = z.astype(np.float64)
+        use_y = np.abs(z64[:, 1]) > np.abs(z64[:, 0])
+        ta = np.stack([z64[:, 1], -z64[:, 0], 0 * z64[:, 0]], 1)
+        tb = np.stack([z64[:, 2], 0 * z64[:, 0], -z64[:, 0]], 1)
+        t64 = np.where(use_y[:, None], ta, tb)
+        t64 /= np.linalg.norm(t64, axis=1, keepdims=True)
+        np.testing.assert_allclose(np.stack([fx, fy, fz], 1), t64,
+                                   atol=2e-6)
         np.testing.assert_allclose(np.stack([gx, gy, gz], 1),
-                                   np.stack([bx, by, bz], 1), atol=2e-6)
+                                   np.cross(z64, t64), atol=2e-5)
         # Orthonormality survives the rsqrt form.
         t = np.stack([fx, fy, fz], 1)
         b = np.stack([gx, gy, gz], 1)

@@ -13,13 +13,13 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from l2n_tpu.config import RenderConfig
-from l2n_tpu.maths.sampling import procedural_color
-from l2n_tpu.ops.nee import make_sphere_light_sampler
-from l2n_tpu.ops.pathtrace import trace_path
-from l2n_tpu.ops.scenes import sphere_intersector
-from l2n_tpu.rng.sampler import ThreefrySampler, max_pairs_per_sample
-from l2n_tpu.scene.spheres import SphereScene
+from l2n.config import RenderConfig
+from l2n.maths.sampling import procedural_color
+from l2n.ops.nee import make_sphere_light_sampler
+from l2n.ops.pathtrace import trace_path
+from l2n.ops.scenes import sphere_intersector
+from l2n.rng.sampler import ThreefrySampler, max_pairs_per_sample
+from l2n.scene.spheres import SphereScene
 
 
 def make_scene():
@@ -58,8 +58,8 @@ def estimate_triangle(nee: bool, bounces: int, n: int = 100_000,
                       tess=(12, 6), origin_z: float = 3.0):
     """Same shooting-gallery setup over TESSELLATED meshes (the light is
     mesh 0, emissive by index; Le = scale/(4 pi * 1), glsl:268)."""
-    from l2n_tpu.render.step import make_intersector
-    from l2n_tpu.scene.tessellate import build_triangle_scene
+    from l2n.render.step import make_intersector
+    from l2n.scene.tessellate import build_triangle_scene
 
     spheres = make_scene() if spheres is None else spheres
     tri = build_triangle_scene(spheres, *tess)
@@ -114,15 +114,15 @@ class TestNEE:
 
     def test_kernel_parity_with_nee(self):
         """Pallas kernel with NEE vs the oracle (interpret mode, CPU)."""
-        from l2n_tpu.camera import Camera
-        from l2n_tpu.render.program import SphereProgram
-        from l2n_tpu.render.state import init_frame_state
+        from l2n.camera import Camera
+        from l2n.render.program import SphereProgram
+        from l2n.render.state import init_frame_state
         cfg = RenderConfig(width=128, height=64, tile_width=128,
                            tile_height=32, sphere_count=32, tiles_per_step=2,
                            nee=True, env_mode="none").validate()
         states = {}
         for backend in ("xla", "pallas"):
-            prog = SphereProgram(cfg, backend=backend)
+            prog = SphereProgram(cfg, backend=backend, interpret=True)
             st = init_frame_state(cfg)
             cam = Camera.from_config(cfg).packed()
             for _ in range(2):
@@ -156,30 +156,6 @@ class TestTriangleNEE:
         b = estimate_triangle(nee=True, bounces=1, n=50_000)
         assert b.std() < 0.3 * a.std()
 
-    @pytest.mark.slow
-    def test_kernel_parity_with_nee(self):
-        """Pallas triangle kernel with cone NEE vs the oracle."""
-        from l2n_tpu.camera import Camera
-        from l2n_tpu.render.program import TriangleProgram
-        from l2n_tpu.render.state import init_frame_state
-        cfg = RenderConfig(width=128, height=64, tile_width=128,
-                           tile_height=32, sphere_count=8, disc_lat=8,
-                           disc_long=4, tiles_per_step=2,
-                           nee=True, env_mode="none").validate()
-        cfg = cfg.replace(scene_kind="triangle")
-        states = {}
-        for backend in ("xla", "pallas"):
-            prog = TriangleProgram(cfg, backend=backend)
-            st = init_frame_state(cfg)
-            cam = Camera.from_config(cfg).packed()
-            for _ in range(2):
-                st = prog.step(st, cam)
-            states[backend] = np.asarray(st.accum)
-        d = np.abs(states["xla"] - states["pallas"])
-        assert np.sqrt((d ** 2).mean()) < 5e-3
-        assert (d > 1e-3).mean() < 2e-3
-
-
 class TestMIS:
     """Balance-heuristic MIS between NEE and BSDF sampling — r1 VERDICT
     next item 5 ('MIS on top of the existing NEE')."""
@@ -210,15 +186,15 @@ class TestMIS:
         assert with_mis.std() <= nee_only.std() * 1.5
 
     def test_mis_kernel_parity(self):
-        from l2n_tpu.camera import Camera
-        from l2n_tpu.render.program import SphereProgram
-        from l2n_tpu.render.state import init_frame_state
+        from l2n.camera import Camera
+        from l2n.render.program import SphereProgram
+        from l2n.render.state import init_frame_state
         cfg = RenderConfig(width=128, height=64, tile_width=128,
                            tile_height=32, sphere_count=32, tiles_per_step=2,
                            nee=True, mis=True, env_mode="none").validate()
         states = {}
         for backend in ("xla", "pallas"):
-            prog = SphereProgram(cfg, backend=backend)
+            prog = SphereProgram(cfg, backend=backend, interpret=True)
             st = init_frame_state(cfg)
             cam = Camera.from_config(cfg).packed()
             for _ in range(2):

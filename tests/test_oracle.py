@@ -6,16 +6,16 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from l2n_tpu.camera import Camera
-from l2n_tpu.config import RenderConfig
-from l2n_tpu.maths.linalg import look_at
-from l2n_tpu.maths.sampling import PI, procedural_color
-from l2n_tpu.ops.envlight import mandelbrot_le, sun_le
-from l2n_tpu.ops.intersect import intersect_sphere_scene, intersect_triangle_scene
-from l2n_tpu.ops.pathtrace import generate_rays, shade, trace_path
-from l2n_tpu.ops.scenes import sphere_intersector, triangle_intersector
-from l2n_tpu.rng.sampler import ThreefrySampler, max_pairs_per_sample
-from l2n_tpu.scene import SphereScene, build_triangle_scene, compute_spheres
+from l2n.camera import Camera
+from l2n.config import RenderConfig
+from l2n.maths.linalg import look_at
+from l2n.maths.sampling import PI, procedural_color
+from l2n.ops.envlight import mandelbrot_le, sun_le
+from l2n.ops.intersect import intersect_sphere_scene, intersect_triangle_scene
+from l2n.ops.pathtrace import generate_rays, shade, trace_path
+from l2n.ops.scenes import sphere_intersector, triangle_intersector
+from l2n.rng.sampler import ThreefrySampler, max_pairs_per_sample
+from l2n.scene import SphereScene, build_triangle_scene, compute_spheres
 
 
 def make_sphere_scene(data):

@@ -6,15 +6,15 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from l2n_tpu.camera import Camera
-from l2n_tpu.config import RenderConfig
-from l2n_tpu.parallel import (
+from l2n.camera import Camera
+from l2n.config import RenderConfig
+from l2n.parallel import (
     ShardedRenderer,
     make_device_mesh,
     mesh_factors,
 )
-from l2n_tpu.parallel.step import slab_tile_grids
-from l2n_tpu.scene import compute_spheres
+from l2n.parallel.step import slab_tile_grids
+from l2n.scene import compute_spheres
 
 CFG = RenderConfig(width=256, height=128, tile_width=128, tile_height=32,
                    sphere_count=16, tiles_per_step=1).validate()
@@ -132,8 +132,8 @@ class TestShardedStep:
         Lit aimed frame (emissive_every=2 + camera on a lit face) — the
         default camera sees ~0.05% lit pixels on this config and the
         comparison was near-vacuous."""
-        from l2n_tpu.parallel.step import build_sharded_step, init_sharded_state
-        from l2n_tpu.scene import compute_spheres
+        from l2n.parallel.step import build_sharded_step, init_sharded_state
+        from l2n.scene import compute_spheres
         from tests.test_brdf import TestRenderIntegration
         cfg = CFG.replace(emissive_every=2)
         mesh = make_device_mesh(4, 2)
@@ -142,7 +142,8 @@ class TestShardedStep:
         cam = TestRenderIntegration._aimed_camera(cfg)
         accums = {}
         for be in ("xla", "pallas"):
-            step = build_sharded_step(cfg, scene, mesh, backend=be)
+            step = build_sharded_step(cfg, scene, mesh, backend=be,
+                                      interpret=True)
             st = init_sharded_state(cfg, mesh)
             for _ in range(2):
                 st = step(st, cam.packed())
@@ -152,84 +153,6 @@ class TestShardedStep:
         np.testing.assert_array_equal(a[:, 3], b[:, 3])
         diff = np.abs(a - b)
         assert (diff > 1e-3).mean() < 1e-3  # statistical parity budget
-
-
-class TestShardedTriangle:
-    """Sharded triangle pallas backend — r1 VERDICT next item 6."""
-
-    TRI_CFG = RenderConfig(width=256, height=128, tile_width=128,
-                           tile_height=32, sphere_count=8, disc_lat=8,
-                           disc_long=4, tiles_per_step=1,
-                           scene_kind="triangle").validate()
-
-    @pytest.mark.slow
-    def test_pallas_backend_matches_xla_backend(self):
-        from l2n_tpu.parallel.step import build_sharded_step, init_sharded_state
-        from l2n_tpu.scene import build_triangle_scene, compute_spheres
-        from tests.test_kernels import TestTriangleKernel
-        mesh = make_device_mesh(4, 2)
-        cfg = self.TRI_CFG
-        spheres = compute_spheres(cfg.sphere_count, cfg.world_size,
-                                  cfg.scene_seed)
-        scene = build_triangle_scene(spheres, cfg.disc_lat, cfg.disc_long)
-        # Aimed camera: the default one sees ~0.05% geometry here, and the
-        # round-3 sharded row_offset/stream bug hid behind the resulting
-        # black-vs-black comparison.
-        cam = TestTriangleKernel.aimed_camera(cfg)
-        accums = {}
-        for be in ("xla", "pallas"):
-            step = build_sharded_step(cfg, scene, mesh, backend=be)
-            st = init_sharded_state(cfg, mesh)
-            for _ in range(2):
-                st = step(st, cam.packed())
-            accums[be] = np.asarray(st.accum)
-        a, b = accums["xla"], accums["pallas"]
-        assert (a[:, :3].max(1) > 0).mean() > 0.05  # real lit coverage
-        np.testing.assert_array_equal(a[:, 3], b[:, 3])
-        diff = np.abs(a - b)
-        assert (diff > 1e-3).mean() < 1e-3
-
-
-class TestShardedObjScene:
-    """Multi-chip x arbitrary imported geometry: the slab-walk kernel
-    (multi-slab tori, no procedural shortcuts) per shard inside shard_map
-    must agree with the sharded oracle step."""
-
-    @pytest.mark.slow
-    def test_pallas_backend_matches_xla_backend(self):
-        from l2n_tpu.parallel.step import build_sharded_step, init_sharded_state
-        from l2n_tpu.scene.obj import load_obj
-        from l2n_tpu.scene.procgen import torus_field_obj
-        cfg = RenderConfig(width=256, height=128, tile_width=128,
-                           tile_height=32, tiles_per_step=1,
-                           scene_kind="triangle").validate()
-        mesh = make_device_mesh(4, 2)
-        scene = load_obj(torus_field_obj(n_tori=2, seg_u=16, seg_v=10,
-                                         world_size=512.0))
-        # Aim at the emissive torus so shards see real hits and light
-        # (the default camera sees only sky here — black-vs-black would
-        # pass vacuously).
-        from l2n_tpu.maths.linalg import look_at
-        verts = np.asarray(scene.vertices).reshape(-1, 3)
-        m0 = verts[:len(verts) // 2]
-        target = m0.mean(0)
-        radius = float(np.linalg.norm(m0 - target, axis=1).max())
-        vm = look_at(target + np.array([0.0, 0.0, 3.5 * radius],
-                                       np.float32),
-                     target, np.array([0.0, 1.0, 0.0], np.float32))
-        cam = Camera.from_config(cfg, view_matrix=vm)
-        accums = {}
-        for be in ("xla", "pallas"):
-            step = build_sharded_step(cfg, scene, mesh, backend=be)
-            st = init_sharded_state(cfg, mesh)
-            for _ in range(2):
-                st = step(st, cam.packed())
-            accums[be] = np.asarray(st.accum)
-        a, b = accums["xla"], accums["pallas"]
-        assert (a[:, :3].max(1) > 0).mean() > 0.05  # real lit coverage
-        np.testing.assert_array_equal(a[:, 3], b[:, 3])
-        diff = np.abs(a - b)
-        assert (diff > 1e-3).mean() < 1e-3
 
 
 class TestShardedCheckpoint:
@@ -262,7 +185,7 @@ class TestShardedCheckpoint:
         cam = Camera.from_config(CFG)
         r.step(cam)
         path = r.save_session(tmp_path / "s.npz")
-        from l2n_tpu.utils.checkpoint import load_sharded_session
+        from l2n.utils.checkpoint import load_sharded_session
         with pytest.raises(ValueError):
             load_sharded_session(path, make_device_mesh(2, 4))
 
@@ -274,9 +197,9 @@ class TestStatefulRngSharding:
     pixel owns its stream, and slabbing cannot change it."""
 
     def _single_device_state(self, cfg, scene, steps, backend="xla"):
-        from l2n_tpu.render.state import init_frame_state
-        from l2n_tpu.render.step import build_render_step
-        step = build_render_step(cfg, scene, backend=backend)
+        from l2n.render.state import init_frame_state
+        from l2n.render.step import build_render_step
+        step = build_render_step(cfg, scene, backend=backend, interpret=True)
         st = init_frame_state(cfg)
         cam = Camera.from_config(cfg).packed()
         for _ in range(steps):
@@ -289,7 +212,7 @@ class TestStatefulRngSharding:
         """Both backends (r4 VERDICT item 5: the pallas kernels thread the
         per-pixel state planes per shard too — same kernel, slab-local
         planes, so slabbing cannot change any pixel's stream)."""
-        from l2n_tpu.parallel.step import (
+        from l2n.parallel.step import (
             build_sharded_step,
             init_sharded_state,
         )
@@ -304,7 +227,8 @@ class TestStatefulRngSharding:
         single = self._single_device_state(cfg, scene, steps=cfg.tile_count,
                                            backend=backend)
         mesh = make_device_mesh(4, 1)
-        step = build_sharded_step(cfg, scene, mesh, backend=backend)
+        step = build_sharded_step(cfg, scene, mesh, backend=backend,
+                                  interpret=True)
         st = init_sharded_state(cfg, mesh)
         cam = Camera.from_config(cfg)
         for _ in range(2):
@@ -317,7 +241,7 @@ class TestStatefulRngSharding:
     def test_sample_axis_replicas_rejected(self):
         """One stream per pixel (reference semantics): a sample axis would
         make replicas retrace identical streams."""
-        from l2n_tpu.parallel.step import init_sharded_state
+        from l2n.parallel.step import init_sharded_state
         mesh = make_device_mesh(4, 2)
         with pytest.raises(ValueError, match="per-pixel"):
             init_sharded_state(CFG.replace(rng="tinymt"), mesh)

@@ -5,9 +5,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from l2n_tpu.camera import Camera
-from l2n_tpu.config import RenderConfig
-from l2n_tpu.render import (
+from l2n.camera import Camera
+from l2n.config import RenderConfig
+from l2n.render import (
     FrameState,
     Renderer,
     SphereProgram,
@@ -16,7 +16,7 @@ from l2n_tpu.render import (
     init_frame_state,
     tile_grid,
 )
-from l2n_tpu.render.tiles import advance_offset, scheduled_pixel_mask, scheduled_tiles
+from l2n.render.tiles import advance_offset, scheduled_pixel_mask, scheduled_tiles
 
 
 CFG = RenderConfig(width=128, height=64, tile_width=64, tile_height=32,

@@ -9,16 +9,16 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from l2n_tpu.rng import tauslcg, tinymt
-from l2n_tpu.rng.sampler import (
+from l2n.rng import tauslcg, tinymt
+from l2n.rng.sampler import (
     MaskedSampler,
     TausLCGSampler,
     ThreefrySampler,
     TinyMTSampler,
     max_pairs_per_sample,
 )
-from l2n_tpu.rng.state import init_tinymt_states
-from l2n_tpu.rng.threefry import sample_draws, threefry2x32, uniform_oo_from_bits
+from l2n.rng.state import init_tinymt_states
+from l2n.rng.threefry import sample_draws, threefry2x32, uniform_oo_from_bits
 
 GOLDEN = json.loads(
     (Path(__file__).parent / "golden" / "tinymt32_vectors.json").read_text())

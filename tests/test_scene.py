@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from l2n_tpu.scene import (
+from l2n.scene import (
     SphereScene,
     build_triangle_scene,
     compute_spheres,
@@ -96,7 +96,7 @@ class TestMaterialsAndLights:
 
     def test_structures(self):
         import numpy as np
-        from l2n_tpu.scene import (DirectionalLights, PhongMaterials,
+        from l2n.scene import (DirectionalLights, PhongMaterials,
                                    PointLights, empty_lights)
         mats = PhongMaterials.from_arrays(
             np.ones((3, 4)), np.zeros((3, 3)), np.full(3, 32.0))
@@ -110,8 +110,8 @@ class TestMaterialsAndLights:
         assert m0.count == p0.count == d0.count == 0
 
     def test_programs_carry_buffers(self):
-        from l2n_tpu.config import RenderConfig
-        from l2n_tpu.render.program import SphereProgram
+        from l2n.config import RenderConfig
+        from l2n.render.program import SphereProgram
         cfg = RenderConfig(width=128, height=32, tile_width=128,
                            tile_height=32, sphere_count=4)
         prog = SphereProgram(cfg, backend="xla")
@@ -144,7 +144,7 @@ f -4 -3 -2 -1
 """
 
     def test_parse_groups_and_fans(self):
-        from l2n_tpu.scene.obj import load_obj
+        from l2n.scene.obj import load_obj
         import numpy as np
         scene = load_obj(self.CUBE)
         assert scene.mesh_count == 2
@@ -159,8 +159,8 @@ f -4 -3 -2 -1
     def test_renders(self):
         import numpy as np
         import jax.numpy as jnp
-        from l2n_tpu.scene.obj import load_obj
-        from l2n_tpu.ops.scenes import triangle_intersector
+        from l2n.scene.obj import load_obj
+        from l2n.ops.scenes import triangle_intersector
         scene = load_obj(self.CUBE)
         isect = triangle_intersector(scene.soup())
         # Ray down +z through the front face center.
@@ -169,7 +169,7 @@ f -4 -3 -2 -1
         assert int(h.index) == 0
 
     def test_file_roundtrip(self, tmp_path):
-        from l2n_tpu.scene.obj import load_obj
+        from l2n.scene.obj import load_obj
         p = tmp_path / "cube.obj"
         p.write_text(self.CUBE)
         scene = load_obj(p)
@@ -181,8 +181,8 @@ class TestTorusField:
 
     def test_deterministic_and_well_formed(self):
         import numpy as np
-        from l2n_tpu.scene.obj import load_obj
-        from l2n_tpu.scene.procgen import torus_field_obj
+        from l2n.scene.obj import load_obj
+        from l2n.scene.procgen import torus_field_obj
 
         text = torus_field_obj(n_tori=4, seg_u=8, seg_v=6)
         assert text == torus_field_obj(n_tori=4, seg_u=8, seg_v=6)
@@ -198,8 +198,8 @@ class TestTorusField:
 
     def test_inside_world_volume(self):
         import numpy as np
-        from l2n_tpu.scene.obj import load_obj
-        from l2n_tpu.scene.procgen import torus_field_obj
+        from l2n.scene.obj import load_obj
+        from l2n.scene.procgen import torus_field_obj
 
         scene = load_obj(torus_field_obj(n_tori=8, world_size=1024.0))
         v = np.asarray(scene.vertices)
